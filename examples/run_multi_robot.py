@@ -1,12 +1,11 @@
 """Multi-robot SLAM: N independent System instances sharing ONE device.
 
-The per-frame device slope leaves the v5e ~99% idle at camera rate, so a
-fleet of robots can share a single chip: each step, every robot's stereo
+A fleet of robots can share a single device: each step, every robot's stereo
 pair joins one batched front-end dispatch (System.prefetch_stereo_batch —
 one program + one packed (B, K, 40) fetch), and each robot's own System
 consumes its row.  The reference is strictly single-session per process
 (one Tracking thread, /root/reference/src/System.cc:197); this is a
-TPU-native capability beyond parity, built on the same public API.
+capability beyond parity, built on the same public API.
 
 Usage: python examples/run_multi_robot.py [n_robots] [n_frames]
 """

@@ -1,6 +1,6 @@
 // Native host-runtime kernels for orbslam3-tpu.
 //
-// The TPU owns the dense per-pixel/per-keypoint compute (JAX/Pallas); these
+// The device owns the dense per-pixel/per-keypoint compute (JAX); these
 // are the *host-side* sequential hot loops, implemented natively where the
 // reference keeps them in C++ (role-parity):
 //  - distribute_octree: the exact recursive quadtree keypoint spreading

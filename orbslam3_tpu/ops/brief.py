@@ -1,14 +1,12 @@
-"""Rotated-BRIEF (rBRIEF) 256-bit descriptors, TPU-native.
+"""Rotated-BRIEF (rBRIEF) 256-bit descriptors.
 
 The reference computes one byte per OpenCL lane from 16 rotated point-pair
 tests (/root/reference/src/OpenCL/Kernel/Orb.cl:36-90).  Here the whole
 descriptor block is one vectorised program: rotate all 512 pattern points for
 all keypoints in f32 (cvRound == rint, matching the oracle's f32 arithmetic),
-pull the 512 samples per keypoint with the fused Pallas window-sampler
-(ops/window_gather.sample_windows: window slice + one-hot MXU selection in
-VMEM; the unfused one-hot einsum path — ops/patches.py — remains the
-fallback/semantic spec), then compare the 256 pairs and pack bits with a
-tiny matmul against powers of two.
+pull the 512 samples per keypoint with the one-hot window sampler
+(ops/patches.sample_windows), then compare the 256 pairs and pack bits
+with a weighted sum against powers of two.
 
 Sampling buffer: the rotated pattern reaches up to 18 px from the center
 while keypoints sit only >= 16 px from the level edge, so sampling uses the
@@ -27,7 +25,7 @@ import jax.numpy as jnp
 import numpy as np
 
 from orbslam3_tpu.ops.brief_pattern import BIT_PATTERN_31
-from orbslam3_tpu.ops.window_gather import sample_windows
+from orbslam3_tpu.ops.patches import sample_windows
 
 BRIEF_PAD = 19   # border width of the sampling buffer (reference EDGE_THRESHOLD)
 PATCH_HALF = 18  # max rounded rotated pattern offset
@@ -82,8 +80,6 @@ def brief_descriptors(
     r_off = jnp.rint(px * b + py * a).astype(jnp.int32)  # (N, 512) in [-18, 18]
     c_off = jnp.rint(px * a - py * b).astype(jnp.int32)
 
-    # fused gather+sample: the 37x37 windows and their one-hot selection
-    # stay in VMEM; HBM sees one image read + the (N, 512) samples
     samples = sample_windows(
         sampling_img, cy - PATCH_HALF, cx - PATCH_HALF,
         r_off + PATCH_HALF, c_off + PATCH_HALF,

@@ -82,9 +82,8 @@ def build_merged_composites(pyramids: list[list[jax.Array]]) -> MergedComposites
     blocks = [img for pyr in pyramids for img in pyr]
     # 2-D shelf packing (first-fit over existing shelves, descending block
     # width): narrow high levels stacked at the level-0 width waste ~25% of
-    # the composite as zero columns, and blur / interior-select / the two
-    # VMEM gather pins all scale with composite area (each bf16 pin drops
-    # ~7.7 -> ~5.9 MB at EuRoC stereo scale).  Correctness is the same
+    # the composite as zero columns, and blur, interior-select and the
+    # window gathers all scale with composite area.  Correctness is the same
     # argument as the detection composite (ops/fast.py): every block keeps
     # its own `p`-px reflect band, and no consumer window reads past its
     # block's band, so blocks can sit side by side.
@@ -246,8 +245,8 @@ def extract_from_pyramids(
     For the standard geometry (every level active at full quota, e.g. the
     stereo pair) the cameras share ONE batched top-k selection, ONE
     orientation gather and ONE descriptor gather over camera-stacked
-    composites — halving the per-frame Pallas launch count and einsum
-    dispatches vs per-camera extraction.  Bit-identical to the per-camera
+    composites — half the per-frame gather and einsum work items of
+    per-camera extraction.  Bit-identical to the per-camera
     path: the batched top_k is row-independent, and composites stack
     whole cameras vertically (windows never cross a camera seam for the
     same reason they never cross level seams — the >= 19 px per-level
@@ -373,8 +372,8 @@ def _extract_single(
     scales = params.scale_factors
     b = FAST_BORDER
     if scores is None:
-        # FAST detection for every level in ONE composite pass (one Pallas
-        # launch + one NMS/retry instead of eight of each)
+        # FAST detection for every level in ONE composite pass (one score
+        # + NMS/retry instead of eight of each)
         active, crops = detection_crops(pyramid, params)
         score_list = detect_two_threshold_multi(
             crops, params.ini_th_fast, params.min_th_fast
@@ -395,8 +394,8 @@ def _extract_single(
     # ---- cross-level batched orientation + BRIEF ----
     # All levels' keypoints are processed by ONE moments gather/einsum and
     # ONE descriptor gather/sampler over vertically-stacked composites
-    # (2 Pallas window-gather launches per camera instead of 16, and the
-    # per-keypoint einsums run at full batch).  Bit-exact: level regions are
+    # (2 window gathers per camera instead of 16, and the per-keypoint
+    # einsums run at full batch).  Bit-exact: level regions are
     # separated by their own borders (orientation keypoints sit >= 19 px
     # inside each level; BRIEF's rotated pattern reach 18 < the 19-px
     # per-level reflect border), so no window crosses a level seam, and all

@@ -1,9 +1,9 @@
-"""FAST-9/16 corner detection, TPU-native.
+"""FAST-9/16 corner detection as whole-image array code.
 
 The reference implements FAST as a per-thread scalar kernel with a 2KB
 contiguous-arc lookup table and a binary search for the corner score
-(/root/reference/src/OpenCL/Kernel/TileCalcKeypoints.cl:140-448).  On TPU we
-instead evaluate the whole image as 16 shifted planes on the VPU:
+(/root/reference/src/OpenCL/Kernel/TileCalcKeypoints.cl:140-448).  Here the
+whole image is evaluated as 16 shifted planes:
 
  - the ring is materialised via static rolls (pure elementwise, fuses in XLA);
  - the "exists a contiguous arc of 9" test + score collapse into a closed form:
@@ -13,15 +13,15 @@ instead evaluate the whole image as 16 shifted planes on the VPU:
  - 3x3 strict NMS and the per-32x32-tile two-threshold retry
    (TileCalcKeypoints.cl:384-409) are elementwise masks.
 
-Everything is int32; results are bit-identical to the CPU oracle.
+On a GPU the score is one Pallas/Triton kernel over 2-D tiles with the
+same arithmetic (`raw_score_triton`).  Everything is int32; results are
+bit-identical to the CPU oracle.
 """
 
 from __future__ import annotations
 
-import math
-
 import functools
-import os
+import math
 
 import jax
 import jax.numpy as jnp
@@ -29,187 +29,6 @@ import jax.numpy as jnp
 from orbslam3_tpu.oracle.orb_cpu import FAST_RING
 
 TILE = 32  # two-threshold retry granularity (work-group tile in the reference)
-
-# The XLA formulation below materialises 16 rolled planes through HBM; the
-# Pallas kernel computes the same score reading the image once per VMEM
-# strip (~6x less HBM traffic).  Same integer arithmetic -> bit-identical.
-_PALLAS_ENV = os.environ.get("ORBSLAM3_TPU_PALLAS_FAST", "1") == "1"
-# fully-fused detection (score+mask+retry+NMS in one kernel).  Default OFF:
-# measured on the v5e (r3, tools/bench_stages.py fast), the fused kernel is
-# 0.50 ms vs 0.36 ms for raw-kernel+XLA-tail per camera — at this composite
-# size the score-map round trip it eliminates is ~1 MB (~1.2 us of HBM time)
-# while the in-kernel NMS/retry adds ~30% VPU ops to a compute-bound kernel.
-# Kept (and parity-tested on hardware, bench.py --verify) as the option that
-# wins when HBM pressure rises (larger composites / batched multi-frame).
-_PALLAS_DETECT = os.environ.get("ORBSLAM3_TPU_PALLAS_DETECT", "0") == "1"
-
-
-# Documented cost model of the raw-score kernel, per composite pixel: 16
-# ring differences + the 58-op van Herk window min/max chain (_win9 x2 +
-# combine) + polarity fold + threshold/masked store ≈ 78 bf16 vector
-# ops/pixel.  bench.py's per_stage_budget uses this for the FAST stage's
-# VPU bound because XLA's cost model cannot see inside a pallas_call.
-FAST_SCORE_OPS_PER_PIXEL = 78
-
-
-def _use_pallas() -> bool:
-    try:
-        return _PALLAS_ENV and jax.default_backend() == "tpu"
-    except Exception:
-        return False
-
-
-def _win9(p: list, op) -> list:
-    """Circular window-9 `op`-reduction over a 16-element plane sequence.
-
-    van Herk / Gil-Werman: extend to 24, block size 9, prefix + suffix
-    scans, window o = op(S[o], P[o+8]) — 58 ops vs the log-step form's 64,
-    and the sequential scans keep far fewer planes live (the log-step chain
-    holds 16 d-planes + 16 partials across every level, ~2x the v5e vreg
-    file at production strip sizes; measured 1.5x faster end-to-end).
-    Result is identical for any association order of min/max.
-    """
-    e = [p[j % 16] for j in range(24)]
-    P: list = [None] * 24
-    for j in range(24):
-        P[j] = e[j] if j % 9 == 0 else op(P[j - 1], e[j])
-    S: list = [None] * 24
-    for j in reversed(range(24)):
-        S[j] = e[j] if (j % 9 == 8 or j == 23) else op(S[j + 1], e[j])
-    return [op(S[o], P[o + 8]) for o in range(16)]
-
-
-def _score16(d: list) -> jax.Array:
-    """FAST score + 1 from the 16 ring-difference planes.
-
-    bright = max_o min(d[o..o+8]); dark = max_o min(-d[o..o+8]) folded as
-    -(min_o max(d[o..o+8])) — one negation of the reduced plane instead of
-    16 plane negations.
-    """
-    wmin = _win9(d, jnp.minimum)
-    bright = functools.reduce(jnp.maximum, wmin)
-    wmax = _win9(d, jnp.maximum)
-    ndark = functools.reduce(jnp.minimum, wmax)
-    return jnp.maximum(bright, -ndark)
-
-
-# column-chunk width for the in-kernel evaluation: half-width chunks keep
-# the live plane set near the vreg file (measured best of {128..768} on v5e)
-_CHUNK_COLS = 384
-
-
-def _raw_score_pallas(
-    img: jax.Array, interpret: bool = False, mask_np=None
-) -> jax.Array:
-    """FAST raw score via a row-strip Pallas kernel.
-
-    The ring's vertical extent is dy in [-3, 3]: the image is padded by 3
-    and restacked as OVERLAPPED strips of strip+6 rows, so every block
-    carries its own halo (one HBM read of ~1.2x the image, vs the earlier
-    7 row-shifted full-image views at 7x); horizontal offsets are static
-    column slices inside VMEM.  bf16 compute (Mosaic on v5e cannot legalize
-    packed int16 min/max; i32 chains measured 1.7x slower); the score is
-    the van Herk windowed min/max form (_score16) evaluated in 384-lane
-    column chunks — 0.21 ms vs 0.40 for the log-step full-strip form on
-    the 2112x736 composite (tools/bench_fast_variants2.py).  Bit-identical
-    to the XLA/roll formulation and the CPU oracle.
-
-    `mask_np` (static (h, w) bool numpy, every True pixel >= 3 px inside
-    the composite) replaces the 3-px frame test: callers with a per-level
-    interior mask (the detection composite) fold it into the store here
-    instead of a separate full-composite where() pass (~0.5 MB/camera of
-    extra HBM round trip + one more fusion).
-    """
-    import numpy as _np
-    from jax.experimental import pallas as pl
-    from jax.experimental.pallas import tpu as pltpu
-
-    h, w = img.shape
-    strip = 48
-    wo = -(-w // 128) * 128
-    wp = -(-(wo + 6) // 128) * 128
-    hp = -(-h // strip) * strip
-    n = hp // strip
-    # bf16 end-to-end: pixels (<=255), ring differences ([-255, 255]) and
-    # min/max chains are all exact in bf16, Mosaic runs bf16 min/max packed
-    # 2-per-lane, and bf16 strips halve the HBM traffic.  Cast to i32 exact.
-    padded = jnp.pad(img, ((3, hp - h + 3), (3, wp - w - 3))).astype(
-        jnp.bfloat16
-    )  # (hp + 6, wp)
-    strips = jnp.stack(
-        [jax.lax.slice(padded, (i * strip, 0), (i * strip + strip + 6, wp))
-         for i in range(n)]
-    )  # (n, strip + 6, wp)
-
-    # static interior mask as an f32 {0,1} plane (f32: Mosaic on v5e
-    # rejects packed-bf16 comparisons); every True pixel is >= 3 px inside
-    # its level, hence inside the composite frame, so it subsumes `inner`
-    if mask_np is not None:
-        # the mask REPLACES the frame test, so a True pixel near the edge
-        # would silently score against the zero padding — enforce the
-        # contract at trace time (cheap: four border-strip reductions)
-        if mask_np.shape != (h, w) or (
-            mask_np[:3].any() or mask_np[-3:].any()
-            or mask_np[:, :3].any() or mask_np[:, -3:].any()
-        ):  # ValueError, not assert: the contract must survive python -O
-            raise ValueError(
-                "mask_np contract: every True pixel must be >= 3 px inside "
-                "the composite"
-            )
-        M = jnp.asarray(
-            _np.pad(mask_np, ((0, hp - h), (0, wo - w))).astype(_np.float32)
-        )
-
-    def kernel(v, *refs):
-        # hoist the 7 lane-unaligned column offsets out of the 16 ring
-        # slices: each distinct dx is materialised once as a full-height
-        # view (7 lane rotates instead of 16 rotate+shift pairs) and the
-        # ring planes become cheap sublane slices of those views — measured
-        # 17% faster on v5e, bit-identical
-        i = pl.program_id(0)
-        m, out = refs if mask_np is not None else (None, *refs)
-        vx = {dx: v[0, :, 3 + dx : 3 + dx + wo] for dx in range(-3, 4)}
-        for c0 in range(0, wo, _CHUNK_COLS):
-            cols = min(_CHUNK_COLS, wo - c0)
-            c = vx[0][3 : 3 + strip, c0 : c0 + cols]
-            d = [
-                vx[dx][3 + dy : 3 + dy + strip, c0 : c0 + cols] - c
-                for (dx, dy) in FAST_RING
-            ]
-            # fold the border/interior zero-mask into the store (the XLA
-            # tail's full-composite where() pass cost ~29 us/frame)
-            if m is not None:
-                inner = m[:, c0 : c0 + cols] > 0.0
-            else:
-                ys = i * strip + jax.lax.broadcasted_iota(
-                    jnp.int32, (strip, cols), 0
-                )
-                xs = c0 + jax.lax.broadcasted_iota(jnp.int32, (strip, cols), 1)
-                inner = (ys >= 3) & (ys < h - 3) & (xs >= 3) & (xs < w - 3)
-            out[:, c0 : c0 + cols] = jnp.where(
-                inner, _score16(d).astype(jnp.int32) - 1, 0
-            )
-
-    in_specs = [
-        pl.BlockSpec(
-            (1, strip + 6, wp), lambda i: (i, 0, 0), memory_space=pltpu.VMEM
-        )
-    ]
-    operands = [strips]
-    if mask_np is not None:
-        in_specs.append(
-            pl.BlockSpec((strip, wo), lambda i: (i, 0), memory_space=pltpu.VMEM)
-        )
-        operands.append(M)
-    score = pl.pallas_call(
-        kernel,
-        grid=(n,),
-        in_specs=in_specs,
-        out_specs=pl.BlockSpec((strip, wo), lambda i: (i, 0), memory_space=pltpu.VMEM),
-        out_shape=jax.ShapeDtypeStruct((hp, wo), jnp.int32),
-        interpret=interpret,
-    )(*operands)
-    return score[:h, :w]
 
 
 def _ring_planes(img_i32: jax.Array) -> jax.Array:
@@ -235,9 +54,20 @@ def raw_score_map(img: jax.Array) -> jax.Array:
 
     Computed once; any thresholded map is `where(raw >= t, raw, 0)` — the
     two-threshold retry therefore costs one score evaluation, not two.
+    On a GPU the Triton kernel computes it; elsewhere the XLA roll
+    formulation, which is also the kernel's reference.  On the H100 the
+    kernel took the stereo front-end from 8.4 to 7.1 ms/frame, and XLA:GPU
+    (jax 0.9.0) miscompiled the roll formulation for a 480x752 image:
+    under jit ~24k pixels differed from the oracle, op by op none did
+    (pinned on the card by tests/test_fast_triton.py).
     """
-    if _use_pallas():
-        return _raw_score_pallas(img)
+    if jax.default_backend() == "gpu":
+        return raw_score_triton(img)
+    return raw_score_xla(img)
+
+
+def raw_score_xla(img: jax.Array) -> jax.Array:
+    """raw_score_map as whole-image XLA: 16 rolled int32 planes."""
     h, w = img.shape
     c = img.astype(jnp.int32)
     ring = _ring_planes(c)
@@ -248,6 +78,78 @@ def raw_score_map(img: jax.Array) -> jax.Array:
     xs = jax.lax.broadcasted_iota(jnp.int32, (h, w), 1)
     inner = (ys >= 3) & (ys < h - 3) & (xs >= 3) & (xs < w - 3)
     return jnp.where(inner, score, 0)
+
+
+# Output tile of the Triton kernel, (rows, cols): powers of two, as Triton
+# requires.  8x64 and 16x64 timed alike on the H100 (tools/fast_ab.py).
+TRITON_TILE = (8, 64)
+
+
+def _win9(p: list, op) -> list:
+    """Circular window-9 `op` over 16 planes (van Herk / Gil-Werman):
+    prefix and suffix runs over blocks of 9 of the ring unrolled to 24,
+    16 windows for 2 x 24 + 16 ops instead of 16 x 8."""
+    e = [p[j % 16] for j in range(24)]
+    pre = [None] * 24
+    for j in range(24):
+        pre[j] = e[j] if j % 9 == 0 else op(pre[j - 1], e[j])
+    suf = [None] * 24
+    for j in reversed(range(24)):
+        suf[j] = e[j] if (j % 9 == 8 or j == 23) else op(suf[j + 1], e[j])
+    return [op(suf[o], pre[o + 8]) for o in range(16)]
+
+
+def _score16(d: list) -> jax.Array:
+    """max(bright arc score, dark arc score) from the 16 ring differences
+    (ring - center), before the final -1."""
+    bright = functools.reduce(jnp.maximum, _win9(d, jnp.minimum))
+    neg_dark = functools.reduce(jnp.minimum, _win9(d, jnp.maximum))
+    return jnp.maximum(bright, -neg_dark)
+
+
+def raw_score_triton(img: jax.Array, interpret: bool = False) -> jax.Array:
+    """raw_score_map as a Pallas kernel through Triton: each 2-D output
+    tile loads its own +-3 px halo from a zero-padded copy of the image,
+    so no rolled plane reaches memory.  `interpret` runs it on any
+    backend."""
+    from jax.experimental import pallas as pl
+    from jax.experimental.pallas import triton as plt
+
+    th, tw = TRITON_TILE
+    h, w = img.shape
+    nh, nw = -(-h // th), -(-w // tw)
+    padded = jnp.pad(img, ((3, nh * th - h + 3), (3, nw * tw - w + 3)))
+
+    def kernel(p_ref, o_ref):
+        r0 = pl.program_id(0) * th
+        c0 = pl.program_id(1) * tw
+
+        def at(dy, dx):
+            v = p_ref[pl.ds(r0 + 3 + dy, th), pl.ds(c0 + 3 + dx, tw)]
+            return v.astype(jnp.int32)
+
+        c = at(0, 0)
+        s = _score16([at(dy, dx) - c for (dx, dy) in FAST_RING]) - 1
+        ys = r0 + jax.lax.broadcasted_iota(jnp.int32, (th, tw), 0)
+        xs = c0 + jax.lax.broadcasted_iota(jnp.int32, (th, tw), 1)
+        inner = (ys >= 3) & (ys < h - 3) & (xs >= 3) & (xs < w - 3)
+        o_ref[...] = jnp.where(inner, s, 0)
+
+    out = pl.pallas_call(
+        kernel,
+        grid=(nh, nw),
+        in_specs=[pl.BlockSpec(memory_space=pl.ANY)],
+        out_specs=pl.BlockSpec((th, tw), lambda i, j: (i, j)),
+        # under shard_map the output varies over the same mesh axes as
+        # the image it is computed from
+        out_shape=jax.ShapeDtypeStruct(
+            (nh * th, nw * tw), jnp.int32, vma=jax.typeof(padded).vma),
+        backend="triton",
+        interpret=interpret,
+        compiler_params=plt.CompilerParams(num_warps=4, num_stages=1),
+        name="fast_raw_score",
+    )(padded)
+    return out[:h, :w]
 
 
 @functools.partial(jax.jit, static_argnums=1)
@@ -269,154 +171,6 @@ def nms3(score: jax.Array) -> jax.Array:
                 continue
             keep &= score > jax.lax.dynamic_slice(p, (1 + dy, 1 + dx), (h, w))
     return jnp.where(keep & (score > 0), score, 0)
-
-
-def _detect_fused_pallas(
-    comp: jax.Array,
-    mask_np,
-    ini_th: int,
-    min_th: int,
-    interpret: bool = False,
-) -> jax.Array:
-    """Masked score + two-threshold retry + strict 3x3 NMS in ONE kernel.
-
-    Replaces the score-map round trip through HBM (raw kernel, then XLA
-    mask/threshold/reduce_window/NMS passes) with a single Pallas launch.
-    Strips are TILE rows tall so each grid step owns exactly one retry-tile
-    row; the cross-strip NMS dependency is resolved with a one-strip lag:
-    step i computes the threshold-selected map of strip i, then emits the
-    NMS'd output of strip i-1 using carried VMEM scratch (sel of strip i-1
-    and the bottom row of strip i-2) — the vertical halo therefore carries
-    the NEIGHBOR strip's own tile-retry selection, exactly matching the
-    unfused semantics.  Grid has n+1 steps; output block max(i-1, 0) is
-    revisited once at the start (garbage from step 0 is overwritten in VMEM
-    before copy-out).  Reference role: TileCalcKeypoints.cl:288-448 (score,
-    NMS, two-threshold retry), fused here instead of relaunched.
-
-    comp: (h, w) uint8 composite, h and w multiples of TILE.
-    mask_np: (h, w) bool numpy — per-level interior (3-px frames zeroed).
-    Returns (h, w) int32 NMS'd score map, bit-identical to the XLA path.
-
-    Mosaic constraint (found on hardware, r3): every lane-dimension slice /
-    store must be a multiple of the 128-lane vreg — odd widths (the old
-    wo+2 "NMS halo" layout) lower to masked bf16 loads that trip an
-    internal legalization assert.  So all row vectors here are exactly
-    `wo` lanes (x == lane), and the one-column NMS halo is realised as
-    zero-filled native rotates instead: columns x=-1 and x=wo are
-    statically mask-zero (each level keeps a 3-px zeroed frame), so a
-    zero neighbor is exact.
-    """
-    import numpy as np
-    from jax.experimental import pallas as pl
-    from jax.experimental.pallas import tpu as pltpu
-
-    h, w = comp.shape
-    assert h % TILE == 0 and w % TILE == 0
-    strip = TILE
-    n = h // strip
-    wo = -(-w // 128) * 128
-    wp = wo + 128  # ring halo: x in [-3, wo+3) fits with a 3-col lead pad
-    # img[y, x] = P[y + 3, x + 3]
-    P = jnp.pad(comp, ((3, 3), (3, wp - w - 3))).astype(jnp.bfloat16)
-    strips = jnp.stack(
-        [jax.lax.slice(P, (i * strip, 0), (i * strip + strip + 6, wp))
-         for i in range(n)]
-    )  # (n, strip+6, wp)
-    # mask[y, x] = M[y, x]; f32 {0,1} multiplier (compares must be f32:
-    # Mosaic on v5e rejects packed-bf16 comparisons — only the min/max arc
-    # chain stays bf16)
-    M = jnp.asarray(
-        np.pad(mask_np, ((0, 0), (0, wo - w))).astype(np.float32)
-    )  # (h, wo)
-
-    def kernel(v, m, out, sel_prev, top_carry):
-        lane = jax.lax.broadcasted_iota(jnp.int32, (1, wo), 1)
-
-        def _shift_cols(a, dx):
-            """Columns moved so lane x reads old lane x+dx; zero fill."""
-            if dx == 0:
-                return a
-            r = pltpu.roll(a, (-dx) % wo, axis=1)
-            if dx > 0:
-                return jnp.where(lane < wo - dx, r, 0.0)
-            return jnp.where(lane >= -dx, r, 0.0)
-
-        i = pl.program_id(0)
-        c = v[0, 3 : 3 + strip, 3 : 3 + wo]
-        d = [
-            v[0, 3 + dy : 3 + dy + strip, 3 + dx : 3 + dx + wo] - c
-            for (dx, dy) in FAST_RING
-        ]
-        raw = (_score16(d) - 1).astype(jnp.float32) * m[...]
-        zero = jnp.zeros_like(raw)
-        hi = jnp.where(raw >= ini_th, raw, zero)
-        lo = jnp.where(raw >= min_th, raw, zero)
-        # per-tile retry flag: group-of-TILE column max of hi over the strip
-        # body, via a 5-step intra-group butterfly (lane XOR s emulated with
-        # two native rotates + parity select; s < TILE never crosses a group
-        # boundary, and wrapped lanes are never selected).  f32: native
-        # rotate has a proven f32 path (ops/window_gather.py).
-        tmax = jnp.max(hi, axis=0, keepdims=True)
-        for s in (1, 2, 4, 8, 16):
-            a = pltpu.roll(tmax, wo - s, axis=1)
-            b = pltpu.roll(tmax, s, axis=1)
-            tmax = jnp.maximum(tmax, jnp.where((lane & s) == 0, a, b))
-        use = tmax > 0.0  # (1, wo), broadcasts over strip rows
-        sel = jnp.where(jnp.logical_and(use, i < n), hi, lo)
-        sel = jnp.where(i < n, sel, zero)  # step n: strip doesn't exist
-
-        # emit strip i-1 (scratch reads gated: uninitialized VMEM may be NaN)
-        prev = jnp.where(i >= 1, sel_prev[...], zero)
-        above = jnp.where(i >= 2, top_carry[...], zero[:1])
-        below = sel[0:1]
-        # ±1-row neighbor planes via sublane rotate + boundary-row select
-        # (Mosaic cannot lower a sublane concat whose pieces carry different
-        # vreg offsets, so no (strip+2, wo) stack is ever built).
-        center = prev
-        rowidx = jax.lax.broadcasted_iota(jnp.int32, (strip, wo), 0)
-        up = jnp.where(rowidx == 0, above, pltpu.roll(center, 1, axis=0))
-        down = jnp.where(
-            rowidx == strip - 1, below, pltpu.roll(center, strip - 1, axis=0)
-        )
-        keep = center > 0.0
-        for band in (up, center, down):
-            for dx in (-1, 0, 1):
-                if band is center and dx == 0:
-                    continue
-                keep &= center > _shift_cols(band, dx)
-        out[:] = jnp.where(keep, center, 0.0).astype(jnp.int32)
-
-        top_carry[...] = prev[strip - 1 : strip]
-        sel_prev[...] = sel
-
-    score = pl.pallas_call(
-        kernel,
-        grid=(n + 1,),
-        in_specs=[
-            pl.BlockSpec(
-                (1, strip + 6, wp),
-                lambda i: (jnp.minimum(i, n - 1), 0, 0),
-                memory_space=pltpu.VMEM,
-            ),
-            pl.BlockSpec(
-                (strip, wo),
-                lambda i: (jnp.minimum(i, n - 1), 0),
-                memory_space=pltpu.VMEM,
-            ),
-        ],
-        out_specs=pl.BlockSpec(
-            (strip, wo),
-            lambda i: (jnp.maximum(i - 1, 0), 0),
-            memory_space=pltpu.VMEM,
-        ),
-        out_shape=jax.ShapeDtypeStruct((h, wo), jnp.int32),
-        scratch_shapes=[
-            pltpu.VMEM((strip, wo), jnp.float32),
-            pltpu.VMEM((1, wo), jnp.float32),
-        ],
-        interpret=interpret,
-    )(strips, M)
-    return score[:, :w]
 
 
 def shelf_pack(
@@ -459,8 +213,8 @@ def detect_two_threshold_multi(
 
     The crops are stacked into a single composite image (each level padded
     to a 32-row/col multiple so the per-tile retry grid stays anchored at
-    its own origin) and the score/NMS/retry pipeline runs once — one Pallas
-    launch instead of eight.  Bit-identical to the per-level path: each
+    its own origin) and the score/NMS/retry pipeline runs once instead of
+    eight times.  Bit-identical to the per-level path: each
     level's 3-px ring frame is zeroed BEFORE NMS exactly as
     raw_score_map does per level, and interior pixels never read across a
     level boundary (ring radius 3 < 3-px zeroed frame + padding).
@@ -510,22 +264,15 @@ def detect_two_threshold_multi(
     mask = np.zeros(comp.shape, bool)
     for (y0, x0, ch, cw) in meta:
         mask[y0 + 3 : y0 + ch - 3, x0 + 3 : x0 + cw - 3] = True
-    if _use_pallas() and _PALLAS_DETECT:
-        score = _detect_fused_pallas(comp, mask, ini_th, min_th)
-    else:
-        if _use_pallas():
-            # per-level interior mask folded into the score kernel's store
-            raw = _raw_score_pallas(comp, mask_np=mask)
-        else:
-            raw = jnp.where(jnp.asarray(mask), raw_score_map(comp), 0)
+    # named scope: trace reductions attribute the FAST stage's device time
+    with jax.named_scope("fast_detect"):
+        raw = jnp.where(jnp.asarray(mask), raw_score_map(comp), 0)
         hi = jnp.where(raw >= ini_th, raw, 0)
         lo = jnp.where(raw >= min_th, raw, 0)
         tile_max = jax.lax.reduce_window(
             hi, jnp.int32(0), jax.lax.max, (TILE, TILE), (TILE, TILE), "VALID"
         )
-        use_hi = jnp.repeat(
-            jnp.repeat(tile_max > 0, TILE, axis=0), TILE, axis=1
-        )
+        use_hi = jnp.repeat(jnp.repeat(tile_max > 0, TILE, axis=0), TILE, axis=1)
         score = nms3(jnp.where(use_hi, hi, lo))
     return [
         score[y0 : y0 + ch, x0 : x0 + cw] for (y0, x0, ch, cw) in meta

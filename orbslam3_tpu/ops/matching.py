@@ -1,14 +1,14 @@
-"""Batch Hamming-distance matching primitives, TPU-native.
+"""Batch Hamming-distance matching primitives.
 
 The reference computes 256-bit Hamming distances one pair at a time with SWAR
 popcount inside nested scalar loops (/root/reference/src/ORBmatcher3.cc:637-653)
-and prunes candidates through per-frame grids / BoW buckets.  On TPU the whole
-distance field is one dense vectorised program: XOR + `lax.population_count`
-reduced over the 32 descriptor bytes, with candidate pruning expressed as
-additive masks on the distance matrix instead of control flow.
+and prunes candidates through per-frame grids / BoW buckets.  Here the whole
+distance field is one dense matrix product over the unpacked descriptor bits,
+with candidate pruning expressed as masks on the distance matrix instead of
+control flow.
 
-All matchers downstream (stereo LR, SearchByProjection, SearchByBoW, ...) are
-thin mask-builders over `hamming_matrix`.
+The device stereo LR matcher (frontend/stereo_frame.py) is a mask-builder over
+`hamming_matrix`.
 """
 
 from __future__ import annotations
@@ -34,11 +34,10 @@ def unpack_bits(desc: jax.Array) -> jax.Array:
 def hamming_matrix(desc_a: jax.Array, desc_b: jax.Array) -> jax.Array:
     """(Na, Nb) int32 Hamming distances between uint8 descriptor blocks.
 
-    desc_*: (N, 32) uint8.  TPU-native formulation: unpack to a (N, 256)
-    0/1 bit matrix and ride the MXU —
+    desc_*: (N, 32) uint8.  Unpacked to a (N, 256) 0/1 bit matrix and
+    computed as one matrix product —
         ham(a, b) = |a| + |b| - 2 a.b
-    One bf16 matmul (values <= 256 are exact in bf16; accumulation in f32),
-    ~50x faster than the popcount+byte-reduce form the VPU would run.
+    bf16 operands (values <= 256 are exact in bf16) with f32 accumulation.
     """
     bits_a = unpack_bits(desc_a).astype(jnp.bfloat16)
     bits_b = unpack_bits(desc_b).astype(jnp.bfloat16)
@@ -46,66 +45,6 @@ def hamming_matrix(desc_a: jax.Array, desc_b: jax.Array) -> jax.Array:
     pa = jnp.sum(bits_a.astype(jnp.float32), axis=1)
     pb = jnp.sum(bits_b.astype(jnp.float32), axis=1)
     return (pa[:, None] + pb[None, :] - 2.0 * ab).astype(jnp.int32)
-
-
-def masked_argmin(dist: jax.Array, valid: jax.Array) -> tuple[jax.Array, jax.Array]:
-    """Per-row (best index, best distance) with invalid entries pushed to BIG."""
-    d = jnp.where(valid, dist, BIG)
-    idx = jnp.argmin(d, axis=1).astype(jnp.int32)
-    # min == value at argmin; a reduce instead of a scalar-unit gather
-    return idx, d.min(axis=1)
-
-
-def masked_two_best(dist: jax.Array, valid: jax.Array) -> tuple[jax.Array, jax.Array, jax.Array]:
-    """Per-row (best idx, best dist, second-best dist) for ratio tests."""
-    d = jnp.where(valid, dist, BIG)
-    idx = jnp.argmin(d, axis=1).astype(jnp.int32)
-    best = d.min(axis=1)
-    # suppress the winner column with a broadcast compare (a per-row scatter
-    # lowers to the slow scalar path on TPU)
-    cols = jax.lax.broadcasted_iota(jnp.int32, d.shape, 1)
-    second = jnp.where(cols == idx[:, None], BIG, d).min(axis=1)
-    return idx, best, second
-
-
-def search_by_projection_batch(
-    proj_uv: jax.Array,      # (M, 2) projected map points
-    pred_level: jax.Array,   # (M,) predicted octave
-    radius: jax.Array,       # (M,) per-point window radius (px)
-    mp_desc: jax.Array,      # (M, 32) uint8 map-point descriptors
-    mp_valid: jax.Array,     # (M,) bool
-    kp_xy: jax.Array,        # (K, 2) frame keypoint slots
-    kp_level: jax.Array,     # (K,)
-    kp_desc: jax.Array,      # (K, 32)
-    kp_valid: jax.Array,     # (K,)
-    th_desc: int = TH_HIGH,
-    ratio: float = 0.8,
-) -> tuple[jax.Array, jax.Array, jax.Array]:
-    """Dense device SearchByProjection: every (map point, keypoint) pair is
-    gated by the square window, the [pred-1, pred] octave band, and
-    descriptor distance, with the reference's same-level nn-ratio test —
-    the reference's per-point grid walk becomes one masked MXU Hamming
-    matmul (the production path when matching whole frames on-device).
-
-    Returns (best_kp_idx (M,), best_dist (M,), matched (M,))."""
-    dx = jnp.abs(kp_xy[None, :, 0] - proj_uv[:, None, 0])
-    dy = jnp.abs(kp_xy[None, :, 1] - proj_uv[:, None, 1])
-    in_window = (dx < radius[:, None]) & (dy < radius[:, None])
-    lvl_ok = (kp_level[None, :] >= pred_level[:, None] - 1) & (
-        kp_level[None, :] <= pred_level[:, None]
-    )
-    valid = in_window & lvl_ok & mp_valid[:, None] & kp_valid[None, :]
-    dist = hamming_matrix(mp_desc, kp_desc)
-    idx, best, second = masked_two_best(dist, valid)
-    best_lvl = kp_level[idx]
-    # nn-ratio applies only when best and runner-up share the level
-    cols = jax.lax.broadcasted_iota(jnp.int32, dist.shape, 1)
-    d2 = jnp.where(valid & (cols != idx[:, None]), dist, BIG)
-    idx2 = jnp.argmin(d2, axis=1)
-    same_lvl = kp_level[idx2] == best_lvl
-    ratio_ok = ~same_lvl | (best.astype(jnp.float32) <= ratio * second.astype(jnp.float32))
-    matched = (best <= th_desc) & ratio_ok
-    return idx, best, matched
 
 
 def rotation_histogram_mask(

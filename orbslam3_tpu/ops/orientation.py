@@ -1,7 +1,7 @@
-"""IC-angle keypoint orientation, TPU-native.
+"""IC-angle keypoint orientation.
 
-One 31x31 dynamic-slice patch per keypoint (vmapped -> one XLA gather), then
-two exact int32 weighted reductions for the intensity-centroid moments and an
+One 31x31 window per keypoint (ops/patches.window_moments), then two exact
+weighted reductions for the intensity-centroid moments and an
 f32 atan2.  Unlike the reference's OpenCL kernel — which drops the cross-lane
 reduction of the partial sums (a known bug, SURVEY §2 G4) — this implements
 the semantically-correct full reduction, matching the reference's CPU path.
@@ -16,6 +16,7 @@ import jax.numpy as jnp
 import numpy as np
 
 from orbslam3_tpu.oracle.orb_cpu import HALF_PATCH_SIZE, ic_moment_weights
+from orbslam3_tpu.ops.patches import window_moments
 
 _W10_NP, _W01_NP = ic_moment_weights()
 
@@ -23,13 +24,11 @@ _W10_NP, _W01_NP = ic_moment_weights()
 def patch_moments(img: jax.Array, xy: jax.Array) -> tuple[jax.Array, jax.Array]:
     """(m10, m01) moments of the circular 31x31 patches at integer xy.
 
-    Patches ride the MXU (ops/patches.py); the weighted reductions are
-    bf16 x bf16 -> f32 einsums (weights in [-15, 15] and pixels <= 255 are
+    Windows come from the one-hot gather (ops/patches.py); the weighted
+    reductions are bf16 x bf16 -> f32 einsums (weights in [-15, 15] and pixels <= 255 are
     bf16-exact; |moments| <= 3.7M < 2^24 is f32-exact), so results equal the
     oracle's integer sums bit-for-bit.
     """
-    from orbslam3_tpu.ops.window_gather import window_moments
-
     return window_moments(
         img,
         xy[:, 1] - HALF_PATCH_SIZE,

@@ -1,13 +1,12 @@
-"""Per-keypoint patch extraction and sampling as one-hot MXU einsums.
+"""Per-keypoint window gathers and sampling as one-hot einsums.
 
-The generic TPU gather unit runs at ~0.1M elements/ms (measured on v5e),
-making per-keypoint patch gathers the dominant extraction cost (the rBRIEF
-sampler alone needs 512K samples/frame -> ~5 ms as a gather).  The MXU
-instead delivers the same values as batched matmuls against one-hot
-selection matrices at >100x the rate:
+Every per-keypoint read of the front-end (orientation moments, rBRIEF
+samples, stereo SAD strips) goes through `gather_windows`,
+`window_moments` or `sample_windows`.  Each is written as batched matmuls
+against one-hot selection matrices:
 
-    patch[k] = rowOH[k] @ img @ colOH[k]^T     (separable selection)
-    sample[k, s] = rowOH2[k, s] . patch[k] . colOH2[k, s]
+    window[k] = rowOH[k] @ img @ colOH[k]^T     (separable selection)
+    sample[k, s] = rowOH2[k, s] . window[k] . colOH2[k, s]
 
 Exactness: every operand is a small non-negative integer (pixels <= 255,
 one-hots 0/1) — all exactly representable in bfloat16 — and contractions
@@ -19,86 +18,13 @@ from __future__ import annotations
 
 import jax
 import jax.numpy as jnp
+import numpy as np
 
 
 def onehot_bf16(idx: jax.Array, n: int) -> jax.Array:
     """0/1 bf16 one-hot over the last axis: out[..., j] = (idx == j)."""
     iota = jax.lax.broadcasted_iota(jnp.int32, idx.shape + (n,), idx.ndim)
     return (idx[..., None] == iota).astype(jnp.bfloat16)
-
-
-def extract_patches(img: jax.Array, xy: jax.Array, half: int) -> jax.Array:
-    """(K, 2*half+1, 2*half+1) f32 patches centered at integer xy (K, 2).
-
-    img: (H, W) uint8 (or any small-int); centers must keep the patch
-    in-bounds (callers guarantee this via detection borders / padding).
-    """
-    h, w = img.shape
-    p = 2 * half + 1
-    off = jnp.arange(p, dtype=jnp.int32)
-    rows = xy[:, 1][:, None] - half + off[None, :]  # (K, P)
-    cols = xy[:, 0][:, None] - half + off[None, :]
-    row_oh = onehot_bf16(rows, h)                   # (K, P, H)
-    col_oh = onehot_bf16(cols, w)                   # (K, P, W)
-    imgb = img.astype(jnp.bfloat16)
-    # row-select output = raw pixels (<= 255, bf16-exact; one-hot dot has a
-    # single contributor so accumulation dtype is irrelevant): keeping the
-    # big (K, P, W) intermediate in bf16 halves its HBM traffic
-    strips = jnp.einsum(
-        "kph,hw->kpw", row_oh, imgb, preferred_element_type=jnp.bfloat16
-    )
-    return jnp.einsum(
-        "kpw,kqw->kpq",
-        strips,
-        col_oh,
-        preferred_element_type=jnp.float32,
-    )
-
-
-def extract_level_strips(
-    stack: jax.Array,
-    level: jax.Array,
-    y0: jax.Array,
-    x0: jax.Array,
-    nr: int,
-    nc: int,
-) -> jax.Array:
-    """(K, nr, nc) f32 windows from a pyramid stack (L, H, W) — window k
-    reads stack[level[k], y0[k]:y0[k]+nr, x0[k]:x0[k]+nc].
-
-    Level selection folds into the row one-hot over the (L*H, W) view, so
-    the whole thing is two MXU einsums; bit-identical to the flat gather
-    (integers < 2^24 accumulate exactly in f32).
-    """
-    l, h, w = stack.shape
-    img2d = stack.reshape(l * h, w).astype(jnp.bfloat16)
-    # the nr window rows are CONSECUTIVE: one base-row one-hot (K, L*H)
-    # against nr shifted image views, instead of a (K, nr, L*H) one-hot
-    # whose materialization alone is ~nr x the traffic
-    base_oh = onehot_bf16(level * h + y0, l * h)         # (K, L*H)
-    img_pad = jnp.concatenate(
-        [img2d, jnp.zeros((nr, w), img2d.dtype)], axis=0
-    )
-    strips = jnp.stack(
-        [
-            jnp.einsum(
-                "kh,hw->kw",
-                base_oh,
-                jax.lax.dynamic_slice_in_dim(img_pad, r, l * h, 0),
-                preferred_element_type=jnp.bfloat16,
-            )
-            for r in range(nr)
-        ],
-        axis=1,
-    )  # (K, nr, W) raw pixels, bf16-exact (single contributor per output)
-    cols = x0[:, None] + jnp.arange(nc, dtype=jnp.int32)[None, :]
-    col_oh = onehot_bf16(cols, w)                        # (K, nc, W)
-    return jnp.einsum(
-        "krw,kcw->krc",
-        strips,
-        col_oh,
-        preferred_element_type=jnp.float32,
-    )
 
 
 def extract_row_strips(
@@ -111,11 +37,9 @@ def extract_row_strips(
     """(K, nr, nc) windows from a 2D composite — window k reads
     img2d[row0[k]:row0[k]+nr, x0[k]:x0[k]+nc].
 
-    Same one-hot machinery as extract_level_strips but over a CONCATENATED
-    (sum_h, W) composite instead of a zero-padded (L, H0, W0) stack: the
-    base-row one-hot contracts over sum_h (~1.4k rows for a 752x480
-    8-level pyramid) instead of L*H0 (3.8k), cutting the strip-extraction
-    MXU work ~2.7x.  Bit-identical (one contributor per output)."""
+    The nr window rows are consecutive, so one base-row one-hot (K, H) is
+    contracted against nr shifted image views instead of materialising a
+    (K, nr, H) one-hot.  Bit-identical (one contributor per output)."""
     h, w = img2d.shape
     img2d = img2d.astype(jnp.bfloat16)
     base_oh = onehot_bf16(row0, h)                       # (K, H)
@@ -165,3 +89,59 @@ def sample_patches(patches: jax.Array, r: jax.Array, c: jax.Array) -> jax.Array:
         col_oh,
         preferred_element_type=jnp.float32,
     )
+
+
+def gather_windows(
+    img2d: jax.Array, row0: jax.Array, col0: jax.Array, nr: int, nc: int
+) -> jax.Array:
+    """(K, nr, nc) bf16 windows; window k = img2d[row0[k]:+nr, col0[k]:+nc].
+
+    Starts are clamped into bounds (callers guarantee real windows are
+    in-bounds; clamping only normalises masked/invalid slots).  bf16 is
+    exact for the u8-valued pixels; consumers upcast before any reduction
+    that can exceed bf16's integer range.
+    """
+    with jax.named_scope("gather_windows"):
+        h, w = img2d.shape
+        r = jnp.clip(row0.astype(jnp.int32), 0, h - nr)
+        c = jnp.clip(col0.astype(jnp.int32), 0, w - nc)
+        return extract_row_strips(img2d, r, c, nr, nc).astype(jnp.bfloat16)
+
+
+def window_moments(
+    img2d: jax.Array,
+    row0: jax.Array,
+    col0: jax.Array,
+    w10: np.ndarray,
+    w01: np.ndarray,
+) -> tuple[jax.Array, jax.Array]:
+    """(m10, m01) weighted window sums per keypoint; weights (nr, nc) are
+    integer-valued host constants.  Exact: integer sums < 2^24 in f32."""
+    nr, nc = w10.shape
+    with jax.named_scope("window_moments"):
+        patches = gather_windows(img2d, row0, col0, nr, nc)
+        # both moments in ONE einsum: the (K, nr, nc) patch read happens
+        # once instead of twice
+        wb = jnp.asarray(np.stack([w10, w01]), jnp.bfloat16)
+        m = jnp.einsum(
+            "kpq,wpq->kw", patches, wb, preferred_element_type=jnp.float32
+        )
+        return m[:, 0], m[:, 1]
+
+
+def sample_windows(
+    img2d: jax.Array,
+    row0: jax.Array,
+    col0: jax.Array,
+    ridx: jax.Array,
+    cidx: jax.Array,
+    nr: int,
+    nc: int,
+) -> jax.Array:
+    """(K, S) samples; sample [k, s] = img2d[row0[k]+ridx[k,s], col0[k]+cidx[k,s]].
+
+    ridx/cidx must lie in [0, nr) / [0, nc); row0/col0 are clamped like
+    gather_windows."""
+    with jax.named_scope("sample_windows"):
+        patches = gather_windows(img2d, row0, col0, nr, nc)
+        return sample_patches(patches, ridx, cidx)

@@ -1,6 +1,6 @@
 """Device-side image pyramid: bilinear resize + fixed-point Gaussian blur.
 
-TPU-first design: all arithmetic is integer fixed point (order-independent, so
+All arithmetic is integer fixed point (order-independent, so
 XLA may fuse/reorder freely without breaking bit-exactness vs the CPU oracle in
 ``orbslam3_tpu.oracle.orb_cpu``).  The resize matches cv2.resize INTER_LINEAR
 for uint8 bit-exactly (the reference builds its pyramid with cv::resize,
@@ -36,8 +36,8 @@ def _resize_mats(sh: int, sw: int, dh: int, dw: int):
     The horizontal pass a0*s[sx] + a1*s[sx+1] is a matmul against a (sw, dw)
     two-nonzeros-per-column tap matrix; the vertical pass needs its two row
     selections separately (per-term truncation), i.e. two (dh, sh) one-hot
-    matrices.  These ride the MXU instead of element gathers (~100x slower
-    on TPU).  Exactness: the 11-bit taps don't fit bf16, so the tap matrix
+    matrices, so the resize is matrix products instead of element gathers.
+    Exactness: the 11-bit taps don't fit bf16, so the tap matrix
     is pre-split into two bf16-exact parts (hi + lo); bf16 x bf16 products
     accumulate exactly in f32 and every partial sum stays < 2^24.
     """
@@ -63,7 +63,7 @@ def _resize_mats(sh: int, sw: int, dh: int, dw: int):
 def _rows_hi_lo(rows: jax.Array) -> tuple[jax.Array, jax.Array]:
     """Byte-split of the horizontal-pass accumulator, all-f32 (exact: rows
     holds integers <= 522240 < 2^24; floor-scalings by powers of two are
-    exact f32 ops, and int32 multiplies run multi-pass on the VPU)."""
+    exact f32 ops)."""
     rows4 = jnp.floor(rows * jnp.float32(1 / 16.0))  # == rows >> 4, <= 32640
     hi = jnp.floor(rows4 * jnp.float32(1 / 256.0))
     lo = rows4 - 256.0 * hi
@@ -123,8 +123,7 @@ def _reflect101_pad3(img: jax.Array) -> jax.Array:
 def gaussian_blur7_u8(img: jax.Array, reflect: bool = True) -> jax.Array:
     """Separable 7-tap sigma=2 fixed-point blur, bit-exact vs the oracle.
 
-    Computed in f32 FMAs (int32 multiplies run multi-pass on the VPU,
-    measured ~2x slower): taps are non-negative 16-bit ints summing to
+    Computed in f32 FMAs: taps are non-negative 16-bit ints summing to
     65536 and pixels are u8, so every partial sum is an integer
     <= 255*65536 < 2^24 — exactly representable in f32 in any association
     order; the `(x + HALF) >> 16` rounding is floor((x + HALF) * 2^-16),
@@ -132,8 +131,7 @@ def gaussian_blur7_u8(img: jax.Array, reflect: bool = True) -> jax.Array:
 
     `reflect=False` zero-pads instead of reflect-101 — valid ONLY when the
     caller never consumes outputs within 3 px of the image edge (the merged
-    bordered composite masks those out); reflect-101 on TPU emits
-    pathological narrow-array `rev` ops worth ~26 us/frame.
+    bordered composite masks those out), which saves the narrow reflect `rev` ops.
     """
     h, w = img.shape
     if reflect:
@@ -189,7 +187,7 @@ def build_pyramid(image: jax.Array, params: PyramidParams) -> list[jax.Array]:
     matmul — every level reads the same source rows), but the vertical row
     selections run per level: the earlier all-levels formulation computed a
     full (sum_h, sum_w) product and kept only its diagonal blocks, wasting
-    ~4x the MXU work (off-diagonal blocks select level A's rows against
+    ~4x the matmul work (off-diagonal blocks select level A's rows against
     level B's columns and are discarded)."""
     sh, sw = image.shape
     sizes = params.level_sizes(sh, sw)[1:]

@@ -1,8 +1,8 @@
-"""Spatially-uniform top-K keypoint selection (DistributeOctTree, TPU-native).
+"""Spatially-uniform top-K keypoint selection (DistributeOctTree).
 
 The reference spreads keypoints with a sequential pointer-chasing quadtree
 (/root/reference/src/ORBextractor.cc:584-774) — unimplementable efficiently
-under XLA's static-shape model.  The TPU design replaces it with an
+under XLA's static-shape model.  Here it is replaced with an
 equivalent-objective, fully data-parallel selection:
 
  1. partition the detection crop into a static grid of at most K cells
@@ -76,7 +76,7 @@ def _candidate_pool(
     cmax, wy, wx, packed, pmax = grid_maxima(padded, cell, ph, pw)
 
     # Residual pool: winners suppressed (broadcast-compare against the
-    # cell-max pack — a per-winner scatter measured 2x slower on TPU), then
+    # cell-max pack instead of a per-winner scatter), then
     # best-per-fine-cell (a 4x finer grid).  A global lax.top_k over the
     # whole map would sort ~350K values (milliseconds); per-fine-cell maxima
     # + a top-k over <=4k candidates is the same spatial-uniformity objective
@@ -142,11 +142,9 @@ def select_topk_grid_multi(
     ys = jnp.stack([pad(p[2], 0) for p in pools])
     xs = jnp.stack([pad(p[3], 0) for p in pools])
     top_key, sel = jax.lax.top_k(key, kmax)               # (L, kmax)
-    # payload pickup rides the MXU: take_along_axis lowers to the scalar
-    # gather unit (~13 us per (L, kmax) gather on v5e — 80 us/frame across
-    # both cameras); a one-hot einsum over byte-split payload planes is
-    # bit-identical (all values < 4096 split into bf16-exact bytes, one
-    # contributor per output) at ~1/10 the cost.
+    # payload pickup as a one-hot einsum over byte-split payload planes in
+    # place of take_along_axis: bit-identical (all values < 4096 split into
+    # bf16-exact bytes, one contributor per output).
     oh = (
         sel[:, :, None]
         == jax.lax.broadcasted_iota(jnp.int32, (1, 1, pmax), 2)

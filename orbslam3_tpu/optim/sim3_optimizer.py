@@ -15,7 +15,7 @@ matching the reference's removal loop), and a final inlier count.
 Implementation: vectorized Gauss-Newton with central-difference Jacobians
 over the 7-dim tangent increment — pair counts are O(100), so 14 residual
 evaluations per iteration are microseconds; no per-edge graph machinery
-needed (the TPU-native stance keeps host optimizers as flat array code).
+needed (host optimizers stay flat array code).
 """
 
 from __future__ import annotations

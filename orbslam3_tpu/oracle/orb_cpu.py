@@ -1,6 +1,6 @@
 """CPU (NumPy) golden-reference implementation of the ORB extraction pipeline.
 
-This module is the *semantic specification* for the TPU device path in
+This module is the *semantic specification* for the device path in
 ``orbslam3_tpu.ops``: every device kernel must match these functions bit-exactly
 (descriptors, blurred pyramid) or set-exactly (FAST keypoints).  The semantics
 mirror the reference extractor (``/root/reference/src/ORBextractor.cc``) —

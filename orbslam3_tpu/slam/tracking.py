@@ -667,17 +667,9 @@ class Tracking:
         so = s[oki]
         if th is None:
             th = 3 if fid < self.last_reloc_frame_id + 2 else 1
-        # large local maps ride the device batch matcher (one masked MXU
-        # Hamming matmul); small ones stay on host where per-dispatch
-        # latency would dominate (crossover measured by bench_matchers.py)
-        if len(cands) >= matchers.DEVICE_MATCH_MIN:
-            matchers.search_by_projection_cands_device(
-                f, cands, proj, table.desc[so], th
-            )
-        else:
-            matchers.search_by_projection_cands(
-                f, cands, proj, table.n_obs[so], table.desc[so], th
-            )
+        matchers.search_by_projection_cands(
+            f, cands, proj, table.n_obs[so], table.desc[so], th
+        )
         import os
 
         if (

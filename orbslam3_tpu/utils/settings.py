@@ -12,23 +12,89 @@ are auto-detected and mapped onto the same fields.
 
 from __future__ import annotations
 
-import re
 from dataclasses import dataclass, field
 
 import numpy as np
 
 
-def _parse_cv_yaml(path: str) -> dict:
-    """cv::FileStorage YAML -> dict (handles %YAML directive and
-    !!opencv-matrix tags, which PyYAML rejects)."""
-    import yaml
+def _scalar(text: str):
+    """One cv::FileStorage YAML scalar: int, float, quoted or bare string,
+    or an inline [a, b, ...] sequence."""
+    text = text.strip()
+    if text.startswith("[") and text.endswith("]"):
+        body = text[1:-1].strip()
+        return [_scalar(t) for t in body.split(",")] if body else []
+    if len(text) >= 2 and text[0] == text[-1] and text[0] in "\"'":
+        return text[1:-1]
+    if text in ("", "~", "null"):
+        return None
+    low = text.lower()
+    if low in ("true", "false"):
+        return low == "true"
+    for cast in (int, float):
+        try:
+            return cast(text)
+        except ValueError:
+            pass
+    return text
 
+
+def _strip_comment(line: str) -> str:
+    quote = None
+    for i, ch in enumerate(line):
+        if quote:
+            if ch == quote:
+                quote = None
+        elif ch in "\"'":
+            quote = ch
+        elif ch == "#":
+            return line[:i]
+    return line
+
+
+def _parse_cv_yaml(path: str) -> dict:
+    """cv::FileStorage YAML -> dict, without PyYAML.
+
+    Covers the subset the reference's settings files use: the %YAML
+    directive and document markers, top-level `key: scalar` lines, and
+    `key: !!opencv-matrix` maps whose indented fields (rows, cols, dt,
+    data) may continue an inline `[...]` list over several lines."""
     with open(path) as f:
-        text = f.read()
-    text = re.sub(r"^%YAML[^\n]*\n", "", text)
-    text = re.sub(r"^---[^\n]*\n", "", text, flags=re.M)
-    text = text.replace("!!opencv-matrix", "")
-    data = yaml.safe_load(text) or {}
+        lines = [_strip_comment(l).rstrip() for l in f]
+    data: dict = {}
+    block = None  # the indented map being filled, if any
+    pending = None  # (map, key, text) of a `[...]` list still open
+    for line in lines:
+        if pending is not None:
+            pending[2].append(line.strip())
+            if line.strip().endswith("]"):
+                target, key, parts = pending
+                target[key] = _scalar(" ".join(parts))
+                pending = None
+            continue
+        if not line.strip() or line.startswith("%") or line.startswith("---"):
+            continue
+        indented = line[0] in " \t"
+        key, sep, value = line.strip().partition(":")
+        if not sep:
+            raise ValueError(f"{path}: cannot parse line {line!r}")
+        key, value = key.strip(), value.strip()
+        if indented:
+            if block is None:
+                raise ValueError(f"{path}: indented line outside a map: {line!r}")
+            target = block
+        else:
+            target, block = data, None
+        if value.startswith("!!"):
+            value = value.split(None, 1)[1] if " " in value else ""
+        if value == "" and not indented:
+            block = data[key] = {}
+        elif value.startswith("[") and not value.endswith("]"):
+            pending = (target, key, [value])
+        else:
+            target[key] = _scalar(value)
+    if pending is not None:
+        raise ValueError(f"{path}: unterminated list for {pending[1]!r}")
     return data
 
 

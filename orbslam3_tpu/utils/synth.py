@@ -26,8 +26,104 @@ def _smooth_noise(size: int, coarse: int, rng) -> np.ndarray:
     return out
 
 
+def _clip_line(w: int, h: int, p1: tuple, p2: tuple):
+    """cv::clipLine: Cohen-Sutherland clip of an integer segment to the
+    image, with C++'s truncating integer arithmetic.  Returns
+    (inside, p1, p2)."""
+    right, bottom = w - 1, h - 1
+    (x1, y1), (x2, y2) = p1, p2
+    c1 = (x1 < 0) + (x1 > right) * 2 + (y1 < 0) * 4 + (y1 > bottom) * 8
+    c2 = (x2 < 0) + (x2 > right) * 2 + (y2 < 0) * 4 + (y2 > bottom) * 8
+    if (c1 & c2) == 0 and (c1 | c2) != 0:
+        if c1 & 12:
+            a = 0 if c1 < 8 else bottom
+            x1 += int((a - y1) * (x2 - x1) / (y2 - y1))
+            y1 = a
+            c1 = (x1 < 0) + (x1 > right) * 2
+        if c2 & 12:
+            a = 0 if c2 < 8 else bottom
+            x2 += int((a - y2) * (x2 - x1) / (y2 - y1))
+            y2 = a
+            c2 = (x2 < 0) + (x2 > right) * 2
+        if (c1 & c2) == 0 and (c1 | c2) != 0:
+            if c1:
+                a = 0 if c1 == 1 else right
+                y1 += int((a - x1) * (y2 - y1) / (x2 - x1))
+                x1 = a
+                c1 = 0
+            if c2:
+                a = 0 if c2 == 1 else right
+                y2 += int((a - x2) * (y2 - y1) / (x2 - x1))
+                x2 = a
+                c2 = 0
+    return (c1 | c2) == 0, (x1, y1), (x2, y2)
+
+
+def _line8(w: int, h: int, p0: tuple, p1: tuple):
+    """(xs, ys) of the 8-connected line cv::line(LINE_8) draws from p0 to
+    p1 on a (h, w) image: clipped first, then stepped left to right with
+    the LineIterator's error term."""
+    if not (0 <= p0[0] < w and 0 <= p1[0] < w and 0 <= p0[1] < h and 0 <= p1[1] < h):
+        inside, p0, p1 = _clip_line(w, h, p0, p1)
+        if not inside:
+            return [], []
+    (x, y), (x1, y1) = p0, p1
+    dx, dy = x1 - x, y1 - y
+    if dx < 0:
+        dx, dy, x, y = -dx, -dy, x1, y1
+    sy = -1 if dy < 0 else 1
+    dy = abs(dy)
+    vert = dy > dx
+    if vert:
+        dx, dy = dy, dx
+    err = dx - 2 * dy
+    xs, ys = [], []
+    for _ in range(dx + 1):
+        xs.append(x)
+        ys.append(y)
+        minor = err < 0
+        err += 2 * dx - 2 * dy if minor else -2 * dy
+        if vert:
+            y += sy
+            x += minor
+        else:
+            x += 1
+            y += sy if minor else 0
+    return xs, ys
+
+
+def fill_polygon(img: np.ndarray, pts: np.ndarray, value: int) -> None:
+    """cv2.fillPoly(img, [pts], value) for the convex polygons make_texture
+    draws, without OpenCV: every row from the leftmost to the rightmost
+    pixel of the closed 8-connected outline (which is what fillPoly paints
+    for such polygons, edge pixels included).  The polygons may reach past
+    the top and bottom edges but must stay inside the left and right ones,
+    as make_texture's do."""
+    h, w = img.shape
+    xs, ys = [], []
+    n = len(pts)
+    for i in range(n):
+        p0 = (int(pts[i - 1][0]), int(pts[i - 1][1]))
+        p1 = (int(pts[i][0]), int(pts[i][1]))
+        lx, ly = _line8(w, h, p0, p1)
+        xs += lx
+        ys += ly
+    if not xs:
+        return
+    xs = np.asarray(xs)
+    ys = np.asarray(ys)
+    y0 = ys.min()
+    rows = ys - y0
+    lo = np.full(rows.max() + 1, w)
+    hi = np.full(rows.max() + 1, -1)
+    np.minimum.at(lo, rows, xs)
+    np.maximum.at(hi, rows, xs)
+    for r in np.nonzero(hi >= 0)[0]:
+        img[y0 + r, lo[r] : hi[r] + 1] = value
+
+
 def make_texture(size: int = 2048, seed: int = 0) -> np.ndarray:
-    """Aperiodic texture: layered smooth noise + random blobs + fine noise.
+    """Aperiodic texture: layered smooth noise + random polygons + fine noise.
 
     Deliberately NO periodic components — a repeating pattern makes ORB
     descriptors identical across lattice sites, and any drift larger than
@@ -48,28 +144,18 @@ def make_texture(size: int = 2048, seed: int = 0) -> np.ndarray:
     #  - identical axis-aligned primitives make *different* corners look
     #    alike (Hamming 30-60), and those aliased matches pass TH_HIGH and
     #    feed a drift-consistent wrong pose (found the hard way).
-    try:
-        import cv2
-
-        img8 = np.clip(img, 0, 255).astype(np.uint8)
-        for _ in range(size):
-            cx, cy = rng.integers(12, size - 12, 2)
-            n_v = int(rng.integers(3, 7))
-            radius = rng.uniform(2.5, 11.0)
-            angs = np.sort(rng.uniform(0, 2 * np.pi, n_v))
-            pts = np.stack(
-                [cx + radius * np.cos(angs), cy + radius * rng.uniform(0.4, 1.6) * np.sin(angs)],
-                axis=1,
-            ).astype(np.int32)
-            v = int(rng.integers(0, 256))
-            cv2.fillPoly(img8, [pts], v)
-        return img8
-    except ImportError:
-        for _ in range(3 * size):
-            cx, cy = rng.integers(6, size - 14, 2)
-            rw, rh = int(rng.integers(2, 9)), int(rng.integers(2, 9))
-            img[cy : cy + rh, cx : cx + rw] = int(rng.integers(0, 256))
-        return np.clip(img, 0, 255).astype(np.uint8)
+    img8 = np.clip(img, 0, 255).astype(np.uint8)
+    for _ in range(size):
+        cx, cy = rng.integers(12, size - 12, 2)
+        n_v = int(rng.integers(3, 7))
+        radius = rng.uniform(2.5, 11.0)
+        angs = np.sort(rng.uniform(0, 2 * np.pi, n_v))
+        pts = np.stack(
+            [cx + radius * np.cos(angs), cy + radius * rng.uniform(0.4, 1.6) * np.sin(angs)],
+            axis=1,
+        ).astype(np.int32)
+        fill_polygon(img8, pts, int(rng.integers(0, 256)))
+    return img8
 
 
 class PlaneWorld:

@@ -1,7 +1,9 @@
-"""Device matching primitives: MXU hamming, rotation mask, batch projection."""
+"""Matching: the device Hamming matrix and rotation mask, and the host
+local-map and last-frame projection matchers."""
 
 import numpy as np
 import jax.numpy as jnp
+import pytest
 
 from orbslam3_tpu.ops import matching as dm
 from orbslam3_tpu.slam.matchers import hamming_matrix_np
@@ -14,41 +16,6 @@ def test_mxu_hamming_matches_numpy():
     b = RNG.integers(0, 256, (90, 32), dtype=np.uint8)
     got = np.asarray(dm.hamming_matrix(jnp.asarray(a), jnp.asarray(b)))
     np.testing.assert_array_equal(got, hamming_matrix_np(a, b))
-
-
-def test_search_by_projection_batch():
-    # build a scene where map point i truly corresponds to keypoint i
-    m = 80
-    kp_xy = RNG.uniform(50, 400, (m, 2)).astype(np.float32)
-    kp_level = RNG.integers(0, 4, m).astype(np.int32)
-    desc = RNG.integers(0, 256, (m, 32), dtype=np.uint8)
-    # projections near the true keypoints; same descriptor with 3 flipped bits
-    proj = kp_xy + RNG.normal(0, 1.0, (m, 2)).astype(np.float32)
-    mp_desc = desc.copy()
-    flips = RNG.integers(0, 32, (m, 3))
-    for i in range(m):
-        for b in flips[i]:
-            mp_desc[i, b] ^= 1 << int(RNG.integers(0, 8))
-    idx, dist, matched = dm.search_by_projection_batch(
-        jnp.asarray(proj), jnp.asarray(kp_level), jnp.full(m, 6.0),
-        jnp.asarray(mp_desc), jnp.ones(m, bool),
-        jnp.asarray(kp_xy), jnp.asarray(kp_level),
-        jnp.asarray(desc), jnp.ones(m, bool),
-    )
-    idx, dist, matched = np.asarray(idx), np.asarray(dist), np.asarray(matched)
-    hit = matched & (idx == np.arange(m))
-    assert hit.mean() > 0.9, hit.mean()
-    assert dist[hit].max() <= 24  # ~3 flipped bytes
-
-    # out-of-window points must not match
-    proj_far = kp_xy + 50.0
-    _, _, matched_far = dm.search_by_projection_batch(
-        jnp.asarray(proj_far), jnp.asarray(kp_level), jnp.full(m, 6.0),
-        jnp.asarray(mp_desc), jnp.ones(m, bool),
-        jnp.asarray(kp_xy), jnp.asarray(kp_level),
-        jnp.asarray(desc), jnp.ones(m, bool),
-    )
-    assert not np.asarray(matched_far).any()
 
 
 def test_rotation_histogram_mask():
@@ -66,61 +33,64 @@ def test_rotation_histogram_mask():
     assert keep[bad].mean() < 0.35
 
 
-def test_device_local_map_matcher_parity():
-    """The device TrackLocalMap path agrees with the host grid-walk on
-    assignments (VERDICT item 7: faster path wired into the loop)."""
-    import numpy as np
-
+def _one_keypoint_scene(kp_u_right=90.0):
+    """A stereo frame whose keypoint 0 sits at (100, 100) on octave 0,
+    with clutter far away, and a map point carrying keypoint 0's
+    descriptor."""
     from orbslam3_tpu.cameras.models import Pinhole
-    from orbslam3_tpu.slam import matchers
     from orbslam3_tpu.slam.frame import Frame
     from orbslam3_tpu.slam.map_point import MapPoint
     from orbslam3_tpu.utils.lie import SE3
 
-    rng = np.random.default_rng(3)
-    cam = Pinhole([400.0, 400.0, 320.0, 240.0])
-    scales = 1.2 ** np.arange(8)
-    n_mps, n_kps = 600, 500
-    pts = rng.uniform(-1, 1, (n_mps, 3)) * [4, 3, 2] + [0, 0, 8]
-    descs = rng.integers(0, 256, (n_mps, 32)).astype(np.uint8)
-    uv_vis = cam.project(pts[: n_kps // 2]) + rng.normal(0, 0.4, (n_kps // 2, 2))
-    uv = np.concatenate([uv_vis, rng.uniform([0, 0], [640, 480], (n_kps - n_kps // 2, 2))])
-    kp_desc = np.concatenate(
-        [descs[: n_kps // 2],
-         rng.integers(0, 256, (n_kps - n_kps // 2, 32)).astype(np.uint8)]
-    )
+    rng = np.random.default_rng(5)
+    n = 20
+    uv = np.concatenate([[[100.0, 100.0]], rng.uniform([300, 300], [600, 450], (n - 1, 2))])
+    desc = rng.integers(0, 256, (n, 32), dtype=np.uint8)
+    u_right = np.full(n, -1.0)
+    u_right[0] = kp_u_right
+    f = Frame(kps=uv, octave=np.zeros(n, np.int32), angle=np.zeros(n, np.float32),
+              response=np.ones(n, np.float32), desc=desc,
+              camera=Pinhole([400.0, 400.0, 320.0, 240.0]),
+              scale_factors=1.2 ** np.arange(8), u_right=u_right,
+              depth=np.where(u_right >= 0, 4.0, -1.0), mbf=40.0)
+    f.set_image_bounds(0, 0, 640, 480)
+    f.set_pose(SE3())
+    mp = MapPoint(np.array([0.0, 0.0, 4.0]), None, None)
+    mp.descriptor = desc[0].copy()
+    mp.track_in_view = True
+    return f, mp
 
-    def make_frame():
-        f = Frame(kps=uv, octave=np.zeros(n_kps, np.int32),
-                  angle=np.zeros(n_kps, np.float32),
-                  response=np.ones(n_kps, np.float32), desc=kp_desc,
-                  camera=cam, scale_factors=scales, mbf=0.0)
-        f.set_image_bounds(0, 0, 640, 480)
-        f.set_pose(SE3())
-        return f
 
-    mps = []
-    for k in range(n_mps):
-        mp = MapPoint(pts[k], None, None)
-        mp.descriptor = descs[k]
-        proj = cam.project(pts[k][None])[0]
-        mp.track_in_view = bool(0 <= proj[0] < 640 and 0 <= proj[1] < 480)
-        mp.track_proj = (proj[0], proj[1], -1.0, 0, 1.0)
-        mps.append(mp)
+@pytest.mark.parametrize("cand_ur,matched", [
+    (90.0, True), (92.0, True), (93.0, False), (80.0, False), (-1.0, True),
+])
+def test_local_map_matcher_stereo_right_gate(cand_ur, matched):
+    """A candidate's predicted right coordinate must lie within the search
+    radius (2.5 px at th=1, octave 0, view cos > 0.998) of the keypoint's
+    measured one; a candidate with no right prediction skips the gate."""
+    from orbslam3_tpu.slam import matchers
 
-    f_host = make_frame()
-    n_host = matchers.search_by_projection_local_map(f_host, mps, th=2.0)
-    f_dev = make_frame()
-    n_dev = matchers.search_by_projection_local_map_device(f_dev, mps, th=2.0)
-    assert n_host > 150
-    # same match decisions on the overwhelming majority of slots (the host
-    # walk iterates points in order and can tie-break differently)
-    agree = sum(
-        1 for a, b in zip(f_host.map_points, f_dev.map_points)
-        if (a is None) == (b is None) and (a is None or a is b)
-    )
-    assert agree >= 0.97 * n_kps, (agree, n_kps, n_host, n_dev)
-    assert abs(n_dev - n_host) <= 0.05 * n_host
+    f, mp = _one_keypoint_scene()
+    mp.track_proj = (100.0, 100.0, cand_ur, 0, 1.0)
+    n = matchers.search_by_projection_local_map(f, [mp], th=1.0)
+    assert n == int(matched)
+    assert (f.map_points[0] is mp) == matched
+
+
+@pytest.mark.parametrize("n_obs,replaced", [(0, True), (2, False)])
+def test_local_map_matcher_keeps_occupied_slots(n_obs, replaced):
+    """A slot holding a map-anchored point (n_obs > 0) is never
+    re-assigned; a temporal VO point (n_obs == 0) is."""
+    from orbslam3_tpu.slam import matchers
+    from orbslam3_tpu.slam.map_point import MapPoint
+
+    f, mp = _one_keypoint_scene()
+    mp.track_proj = (100.0, 100.0, 90.0, 0, 1.0)
+    old = MapPoint(np.array([0.0, 0.0, 4.0]), None, None)
+    old.n_obs = n_obs
+    f.map_points[0] = old
+    matchers.search_by_projection_local_map(f, [mp], th=1.0)
+    assert (f.map_points[0] is mp) == replaced
 
 
 def test_native_local_map_matcher_parity_and_speed():

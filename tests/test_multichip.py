@@ -2,9 +2,9 @@
 
 The multi-chip strategy (SURVEY §2d answer: frame-parallel data sharding
 over a `jax.sharding.Mesh`, no hot-path collectives) must not change any
-output.  Runs on the conftest-forced 8-device virtual CPU mesh exactly as
-it would on ICI-connected chips; kernels are integer/fixed-point so
-equality is exact.
+output.  Runs on the conftest-forced 8-device virtual CPU mesh; kernels are
+integer/fixed-point so equality is exact.  `chip_smoke.py --multi 4` runs
+the fleet program's gate on four GPUs.
 """
 
 import jax
@@ -59,9 +59,7 @@ def test_throughput_scan_batch_sharding_bit_exact():
     cannot partition a lax.scan's iteration axis, so each device scans its
     LOCAL shard of the fleet batch.  Per-frame packed outputs must be
     bit-equal sharded vs unsharded (__graft_entry__.dryrun_multichip
-    phase 2 runs the same gate at production geometry)."""
-    from jax.experimental.shard_map import shard_map
-
+    runs the same gate at production geometry)."""
     from orbslam3_tpu.frontend.stereo_frame import (
         extract_and_match_stereo_packed_batch,
     )
@@ -77,7 +75,7 @@ def test_throughput_scan_batch_sharding_bit_exact():
         return extract_and_match_stereo_packed_batch(ps, PARAMS)
 
     fleet = jax.jit(
-        shard_map(run, mesh=mesh, in_specs=P("data"), out_specs=P("data"))
+        jax.shard_map(run, mesh=mesh, in_specs=P("data"), out_specs=P("data"))
     )
     out = np.asarray(fleet(jax.device_put(pairs, NamedSharding(mesh, P("data")))))
     single = np.asarray(run(jax.device_put(pairs, jax.devices()[0])))

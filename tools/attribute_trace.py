@@ -3,8 +3,8 @@
 Joins a tools/trace_ops.py trace with the optimized HLO's per-op
 source_file metadata, printing device microseconds per source file (and
 the top ops within each).  This is the noise-free way to A/B a structural
-change: wall-clock through the relay jitters +-5%, but in-program op sums
-only change when the program does.
+change: wall-clock jitters, but in-program op sums only change when the
+program does.
 
 Usage: python tools/attribute_trace.py  (captures trace + dumps HLO itself)
 """
@@ -13,12 +13,6 @@ import os
 import re
 import sys
 import time
-
-import jax
-
-jax.config.update("jax_compilation_cache_dir", "/root/.cache/jax_comp")
-jax.config.update("jax_persistent_cache_min_compile_time_secs", 1.0)
-import numpy as np
 
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
@@ -34,15 +28,26 @@ def hlo_source_map(txt: str) -> dict:
     return out
 
 
+def hlo_scope_map(txt: str) -> dict:
+    """op name -> op_name metadata (the jit path with its named scopes)."""
+    return {
+        m.group(1): m.group(2)
+        for m in re.finditer(r"%([\w.\-]+) = [^\n]*?op_name=\"([^\"]+)\"", txt)
+    }
+
+
 def main():
+    from orbslam3_tpu.utils.compile_cache import setup_compile_cache
     from tools.trace_ops import build_run, capture, parse_xplane
 
+    setup_compile_cache()
     run, pairs = build_run()
-    txt = jax.jit(run.__wrapped__).lower(pairs).compile().as_text()
-    smap = hlo_source_map(txt)
-    log_dir = "/tmp/attr_%d" % int(time.time())
-    capture(run, pairs, log_dir)
-    rows, total, path = parse_xplane(log_dir)
+    log_dir = os.path.join(
+        os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
+        ".traces", "attr_%d" % int(time.time()),
+    )
+    smap = hlo_source_map(capture(run, pairs, log_dir).as_text())
+    rows, _busy, _window, path = parse_xplane(log_dir)
 
     n_frames = 8
     per_file: dict = {}

@@ -1,12 +1,15 @@
 """A/B micro-benchmark of stereo SAD-refinement formulations on the chip."""
 
+import os
 import sys
 import time
 
 import jax
 
-jax.config.update("jax_compilation_cache_dir", "/root/.cache/jax_comp")
-jax.config.update("jax_persistent_cache_min_compile_time_secs", 1.0)
+sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
+from orbslam3_tpu.utils.compile_cache import setup_compile_cache  # noqa: E402
+
+setup_compile_cache()
 import jax.numpy as jnp
 import numpy as np
 
@@ -90,7 +93,7 @@ def v3_merged_slices(pl, pr):
 
 
 def v4_matmul(pl, pr):
-    """abs-diff fused into an MXU ones-contraction over the 121 window px."""
+    """abs-diff fused into a ones-contraction over the 121 window px."""
     pl_t = jnp.transpose(pl, (2, 1, 0))
     pr2 = jnp.transpose(pr, (2, 1, 0)).reshape(WW * WL, K)
     pl2 = pl_t.reshape(WL * WL, K)

@@ -1,12 +1,15 @@
 """Slope-method per-stage breakdown of the stereo front-end on the real chip."""
 
+import os
 import sys
 import time
 
 import jax
 
-jax.config.update("jax_compilation_cache_dir", "/root/.cache/jax_comp")
-jax.config.update("jax_persistent_cache_min_compile_time_secs", 1.0)
+sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
+from orbslam3_tpu.utils.compile_cache import setup_compile_cache  # noqa: E402
+
+setup_compile_cache()
 import jax.numpy as jnp
 import numpy as np
 

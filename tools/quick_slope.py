@@ -1,11 +1,12 @@
 """Headline + slope measurement only (stages A/B1 of bench.py), for A/B work."""
 
+import os
 import sys
 import time
 
 import numpy as np
 
-sys.path.insert(0, "/root/repo")
+sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 import bench  # noqa: E402
 
 

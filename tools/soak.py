@@ -1,4 +1,4 @@
-"""Long-sequence soak run: full SLAM on real TPU at production geometry.
+"""Long-sequence soak run: full SLAM on the accelerator at production geometry.
 
 Renders an N-frame (default 400) looping sweep through the synthetic
 textured world at EuRoC geometry (480x752, 8 levels, 1000 features),
@@ -10,17 +10,16 @@ MH01 artifacts play (2250-frame run, 176 KFs; BASELINE.md).
 Usage: python tools/soak.py [n_frames] [pipe_depth]
 """
 
+import os
 import sys
 import time
 
 import numpy as np
 
-sys.path.insert(0, ".")
+sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
+from orbslam3_tpu.utils.compile_cache import setup_compile_cache  # noqa: E402
 
-import jax  # noqa: E402
-
-jax.config.update("jax_compilation_cache_dir", "/root/.cache/jax_comp")
-jax.config.update("jax_persistent_cache_min_compile_time_secs", 1.0)
+setup_compile_cache()
 
 from collections import deque  # noqa: E402
 
